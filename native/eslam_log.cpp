@@ -10,7 +10,7 @@
 //   * an mmap-backed reader with an in-memory record index for O(1)
 //     random access,
 //   * an asynchronous double-buffered prefetcher (pthread worker) that
-//     stages decoded frames into host buffers so the TPU feed path
+//     stages decoded frames into host buffers so the device feed path
 //     never blocks on disk IO.
 //
 // Exposed as a plain C ABI consumed from Python via ctypes

@@ -320,7 +320,7 @@ class KeyframeManager:
         consistent, so only the suffix reachable from new constraints
         needs iteration.  A no-op (returns the cached trajectory) when
         nothing new arrived.  ``solver``/``mesh`` forward to
-        ``PoseGraphBuilder.optimize`` (dense MXU Cholesky vs
+        ``PoseGraphBuilder.optimize`` (dense Cholesky vs
         matrix-free, optionally mesh-distributed, PCG).
         """
         import numpy as _np

@@ -7,13 +7,12 @@ Here, a planar pose graph over trajectory keyframes fuses odometry
 constraints with loop-closure constraints detected by scan-to-map
 alignment, optimised by Gauss-Newton.
 
-TPU-first formulation: the graph is fixed-shape SoA (``M`` nodes,
-``E`` edges with validity masks); each GN iteration builds the normal
-equations **densely** — scatter-adding 3x3 edge blocks into
-``H [3M, 3M]`` and solving on the MXU (Cholesky) — which for trajectory
-graphs up to thousands of keyframes is faster on TPU than any sparse
-factorisation, because the MXU eats the dense solve while a
-CPU-sparse-style elimination would serialise.  For larger graphs a
+Fixed-shape formulation: the graph is SoA (``M`` nodes, ``E`` edges
+with validity masks); each GN iteration builds the normal equations
+**densely** — scatter-adding 3x3 edge blocks into ``H [3M, 3M]`` and
+solving with a dense Cholesky — which keeps trajectory graphs up to
+thousands of keyframes one fixed-shape device program instead of a
+serial sparse elimination.  For larger graphs a
 matrix-free conjugate-gradient path does H-matvecs as segment
 reductions (no H materialisation).  Residuals/Jacobians are closed
 form and fully vectorised over edges.
@@ -31,9 +30,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-# solver-grade contractions: the TPU MXU default rounds f32
-# operands to bf16, which degrades GN/PCG convergence — pin exact
-# multi-pass f32 (the per-edge einsums are tiny; cost is negligible)
+# solver-grade contractions: a reduced-precision default (TF32/bf16
+# passes) degrades GN/PCG convergence — pin exact f32 (the per-edge
+# einsums are tiny; cost is negligible)
 _einsum = partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -178,7 +177,7 @@ def _robustified(graph: PoseGraph, robust, delta):
 
 def gauss_newton_step(graph: PoseGraph, damping=1e-6, fix_first=True,
                       fix_mask=None, robust=None, robust_delta=1.0):
-    """One dense GN step (MXU Cholesky over the [D*M, D*M] normal
+    """One dense GN step (Cholesky over the [D*M, D*M] normal
     matrix).  ``fix_mask [M]`` freezes nodes (incremental re-solves
     touch only the affected suffix of the trajectory).  ``robust``:
     'huber' / 'dcs' iteratively-reweighted edge information (outlier
@@ -268,7 +267,7 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
     (gather node values at edge endpoints -> per-edge D x D block
     products -> scatter-add).  With ``mesh`` the edges shard over the
     ``('dp',)`` axis inside ``shard_map``: every device computes the
-    matvec partial for its edges and a ``psum`` over ICI completes it —
+    matvec partial for its edges and a ``psum`` completes it —
     the trajectory-dimension distributed solve SURVEY §5 calls for
     (scales past the dense Cholesky's [D*M]^2 memory at large M).
 
@@ -350,11 +349,6 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
     else:
         from jax.sharding import PartitionSpec as P
 
-        if hasattr(jax, "shard_map"):
-            _shard_map = jax.shard_map
-        else:  # pragma: no cover
-            from jax.experimental.shard_map import shard_map as _shard_map
-
         def local(ei, ej, ez, einfo, evalid):
             g = dataclasses.replace(
                 graph, edge_i=ei, edge_j=ej, edge_z=ez,
@@ -365,7 +359,7 @@ def gauss_newton_step_cg(graph: PoseGraph, damping=1e-6, fix_first=True,
             delta, chi2 = solve_local(g, psum=psum)
             return delta, chi2[None]
 
-        delta, chi2 = _shard_map(
+        delta, chi2 = jax.shard_map(
             local,
             mesh=mesh,
             in_specs=(P("dp"), P("dp"), P("dp"), P("dp"), P("dp")),
@@ -438,10 +432,10 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4,
     most ``boundary_cap``) are eliminated last:
 
     1. per-segment dense interior systems ``A_II^s`` factor
-       independently (batched MXU Cholesky — [S, NL*D, NL*D], never a
+       independently (batched Cholesky — [S, NL*D, NL*D], never a
        global [M*D, M*D] matrix),
     2. the small boundary system ``S_BB = A_BB - sum_s A_BI (A_II)^-1
-       A_IB`` reduces across segments (``psum`` over ICI when ``mesh``
+       A_IB`` reduces across segments (``psum`` when ``mesh``
        shards the segment axis),
     3. back-substitution recovers interior deltas segment-locally.
 
@@ -552,8 +546,8 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4,
         cf = jax.scipy.linalg.cho_factor(a)
         y = jax.scipy.linalg.cho_solve(cf, c)        # [NL*D, NB*D]
         w = jax.scipy.linalg.cho_solve(cf, bsd)      # [NL*D]
-        s_contrib = c.T @ y                          # [NB*D, NB*D]
-        r_contrib = c.T @ w                          # [NB*D]
+        s_contrib = _einsum("ki,kj->ij", c, y)      # [NB*D, NB*D]
+        r_contrib = _einsum("ki,k->i", c, w)        # [NB*D]
         return y, w, s_contrib, r_contrib
 
     if mesh is None:
@@ -565,11 +559,6 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4,
         delta_i = -w - _einsum("sij,j->si", y, delta_b)
     else:
         from jax.sharding import PartitionSpec as P
-
-        _shard_map = (jax.shard_map if hasattr(jax, "shard_map")
-                      else __import__(
-                          "jax.experimental.shard_map",
-                          fromlist=["shard_map"]).shard_map)
 
         def local(a_ii_l, a_ib_l, b_l, pin_l):
             y, w, s_c, r_c = jax.vmap(seg_solve)(
@@ -583,7 +572,7 @@ def gauss_newton_step_schur(graph: PoseGraph, segments=4,
             delta_i = -w - _einsum("sij,j->si", y, delta_b)
             return delta_i, delta_b[None]
 
-        delta_i, delta_b = _shard_map(
+        delta_i, delta_b = jax.shard_map(
             local, mesh=mesh,
             in_specs=(P("dp"), P("dp"), P("dp"), P("dp")),
             out_specs=(P("dp"), P()),
@@ -627,7 +616,7 @@ def scan_align(grid, cloud, xy0, yaw0, z0,
     """Grid-search alignment of a scan cloud against an MLS grid around
     an initial pose guess — the loop-closure front-end.  Evaluates the
     ``match_cloud`` consistency score over a (dx, dy, dyaw[, dz]) grid
-    in one batched sweep (TPU-native exhaustive correlation instead of
+    in one batched sweep (exhaustive correlation instead of
     iterative ICP) and returns ``(best_xy, best_yaw, best_score)``.
 
     ``search_z``: half-range of a vertical offset sweep.  The believed
@@ -739,7 +728,7 @@ class PoseGraphBuilder:
 
     def optimize(self, iters=10, fix_mask=None, solver="dense",
                  cg_iters=32, mesh=None, robust=None, robust_delta=1.0):
-        """``solver='dense'``: MXU Cholesky; ``'cg'``: matrix-free
+        """``solver='dense'``: dense Cholesky; ``'cg'``: matrix-free
         block-Jacobi PCG, optionally mesh-distributed over the edge
         axis.  ``robust``: 'huber'/'dcs' edge reweighting."""
         if solver == "cg":

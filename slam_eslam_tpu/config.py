@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native embodied-SLAM engine.
+"""Configuration for the embodied-SLAM engine.
 
 Mirrors the semantics of the reference configuration structs
 (``/root/reference/src/Configuration.hpp:83-213``), re-expressed as frozen
@@ -81,11 +81,11 @@ class ContactModelConfig:
     # alternative model class (``ChittaContactModel``,
     # ``src/ContactModel.hpp:168-173``, ``ContactModel.cpp:342-361``)
     weighting: str = "ratio"
-    # fold the likelihood ratio + group reductions into the Pallas
-    # window kernel when the lookup supports it (``lookup.fold``) and
-    # neither slip/terrain probabilities nor debug points are requested
-    # — semantics-preserving to ~5e-5 rel (the in-kernel Mills-ratio
-    # approximation; see ops.pallas_gather._mills_ratio)
+    # fuse the likelihood ratio + group reductions with the map gather
+    # when the lookup supports it (``lookup.fold``) and neither
+    # slip/terrain probabilities nor debug points are requested —
+    # semantics-preserving to ~5e-5 rel (the fold's Mills-ratio
+    # approximation; see models.contact_model._mills_ratio)
     fold_lookup: bool = True
 
 
@@ -152,39 +152,12 @@ class Config:
     log_debug: bool = False
     log_particle_period: int = 100
 
-    # ---- TPU-native additions (no reference counterpart) ----
+    # ---- additions (no reference counterpart) ----
     # wrap-safe centroid yaw: the reference's getCentroid takes a plain
     # weighted mean of yaw (``PoseEstimator.cpp:368``), which breaks at
     # the +-pi wrap; True switches to the circular mean
     # atan2(sum w sin, sum w cos).  Default False = faithful.
     wrap_safe_centroid: bool = False
-    # shared-map lookup path: "gather" = XLA full-grid gather;
-    # "window" = Pallas VMEM-window kernel (fast, but queries beyond
-    # the window miss); "auto" = window kernel with an on-device
-    # spread-detection fallback to the full gather (production default)
-    lookup_mode: str = "auto"
-    # window size in cells for the Pallas lookup (int or (wx, wy)).
-    # Kernel cost scales with the Y extent only (stage 1 contracts over
-    # x on the MXU, whose K dim pads to 128 anyway — x width up to 128
-    # is FREE; BENCH.md round-3 sweep: 128x64 = 3.96 ns/q == 64x64,
-    # 128x96 = 4.44 < 96x96 = 4.47).  y = 96 @ 0.05 m = 4.8 m covers a
-    # 100k-particle tracking cloud with sigma ~0.3 m at +-8 sigma
-    # (64 sits at the +-4.5 sigma extreme -> the auto fallback fires
-    # most steps); x = 128 halves fallback triggers at no cost.
-    lookup_window: tuple = (128, 96)
-    # adaptive window tiers for the auto fold lookup: smaller windows
-    # tried (smallest first) before ``lookup_window``, chosen on device
-    # from the query cloud's bounding box (same spread test as the
-    # gather fallback).  The fold kernel's stage-1 one-hot matmul costs
-    # ~wy*2K*wx MACs per particle, so each tier is a proportional MXU
-    # saving when it fits.  Sizing measured on the bench trajectory
-    # (tools/probe_spread.py, 100k particles): the steady-state query
-    # cloud is ~45x57 cells -> (128, 64) fits 84% of steps (1.5x less
-    # MXU work); (128, 32) covers converged-localisation clouds
-    # (~16-20 cells).  Spread steps (init, post-relocalisation) fall
-    # through to ``lookup_window`` and then the exact gather.
-    # () disables tiering (single-window behaviour).
-    lookup_tiers: tuple = ((128, 32), (128, 64))
     # number of patch slots per MLS cell (fixed-shape patch lists)
     mls_patches_per_cell: int = 4
     # z search window (m) for MLSMap::getPatch (reference passes 3.0,
@@ -197,9 +170,9 @@ class Config:
     # 1.5x patch memory + merge traffic)
     map_pool_color: bool = True
     # storage dtype of the pool's float patch fields: 'float32' (exact)
-    # or 'bfloat16' (10 bytes/patch-slot instead of 16 — the setting
-    # that fits 100k-particle per-particle SLAM on one v5e chip; all
-    # fusion arithmetic stays f32, values round once on store)
+    # or 'bfloat16' (10 bytes/patch-slot instead of 16 — for pools that
+    # would not fit the device otherwise; all fusion arithmetic stays
+    # f32, values round once on store)
     map_pool_dtype: str = "float32"
     # max grids chained per particle map (MLSMap grid chain)
     map_chain_length: int = 4
@@ -209,32 +182,8 @@ class Config:
     # 'dp' mesh with shards == mesh size, every fresh block is homed on
     # its particle's device (particle/block co-location), so merges and
     # head lookups stay shard-local; chain tails may still reference
-    # remote blocks after resampling migration (bounded cross-ICI
+    # remote blocks after resampling migration (bounded cross-device
     # gathers).  The allocation pattern depends only on this value —
     # never on the actual device count — so runs are bit-identical
-    # across mesh sizes.  1 = global allocation (single-chip default).
+    # across mesh sizes.  1 = global allocation (single-device default).
     map_pool_shards: int = 1
-    # per-particle map-pool kernel selection (scan merges AND chain
-    # lookups): 'pallas' = the per-block streaming kernels
-    # (ops.pallas_merge / ops.pallas_chain — DMA each particle's
-    # blocks through VMEM via scalar-prefetched index maps, one-hot MXU
-    # accumulation/gather, no XLA gather/scatter); 'xla' = the
-    # gather/scatter formulations; 'auto' = pallas on TPU for
-    # colourless pools, xla otherwise.  On a mesh, merges run the
-    # kernel shard-locally when map_pool_shards == mesh size; chain
-    # lookups fall back to 'xla' (chain tails may be remote).
-    merge_kernel: str = "auto"
-    # particles per Pallas-merge grid step (merge_blocks_grouped):
-    # > 1 streams G active blocks per step through a stacked VMEM image
-    # via manual DMA, amortising the kernel's ~2 us/step fixed Mosaic
-    # overhead G-fold (tools/probe_merge_overhead.py).  1 = the
-    # original per-block kernel.
-    merge_group: int = 1
-    # per-particle map-CHAIN lookup kernel (the measurement update's
-    # ``MLSMap::getPatch`` path, ``PoseEstimator.hpp:97-105``):
-    # 'pallas' = ops.pallas_chain block streaming; 'xla' = the vmapped
-    # gather; 'auto' = pallas on the TPU backend for colour-free pools,
-    # xla otherwise.  Separate from ``merge_kernel`` so an explicit
-    # merge-kernel choice on a CPU run cannot silently route chain
-    # lookups through interpret-mode Pallas (advisor round 2).
-    chain_kernel: str = "auto"

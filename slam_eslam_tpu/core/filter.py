@@ -1,6 +1,6 @@
 """Generic particle-filter core: weight bookkeeping, ESS, resampling.
 
-TPU-native rebuild of the reference's header-only SIR filter template
+Array-program rebuild of the reference's header-only SIR filter template
 (``/root/reference/src/ParticleFilter.hpp``).  The reference stores
 particles as an ``std::vector`` of structs and resamples with a sequential
 cumulative-sum walk; here particles are structure-of-arrays pytrees and
@@ -63,12 +63,12 @@ def _resample_from_positions(weights, positions, block=128,
     stopping rule ``while (sum_w < sum_r) ++idx``).
 
     ``method="wide"`` (default) computes that count with a two-level
-    wide search instead of ``jnp.searchsorted``: the binary search
-    lowers to a ``log2(N)``-iteration while loop whose per-iteration
-    [Q] gather made resampling ~0.66 ms at 100k particles on a v5e
-    (round-4 trace).  Level 1 counts the cumsum *blocks* that lie
-    entirely below each position (one [Q, N/block] compare-all — pure
-    VPU work, no gather); level 2 row-gathers each position's single
+    wide search instead of ``jnp.searchsorted``, whose binary search
+    lowers to a ``log2(N)``-iteration while loop with a [Q] gather per
+    iteration (whether the wide search wins on a GPU is not measured).
+    Level 1 counts the cumsum *blocks* that lie entirely below each
+    position (one [Q, N/block] compare-all, no gather); level 2
+    row-gathers each position's single
     partial block ([Q, block] contiguous rows) and counts inside it.
     Identical indices to the binary search except where a position
     collides (within 1 ulp) with a non-monotone dip of the float
@@ -173,13 +173,13 @@ def take(particles, idx):
 
 def take_packed(particles, idx):
     """``take`` specialised for ``ParticleSet``: pack the 10 per-particle
-    lanes into one ``[N, 10]`` int32 matrix (float fields bitcast — the
+    fields into one ``[N, 10]`` int32 matrix (float fields bitcast — the
     round trip is exact for every value incl. NaN/inf), do ONE
     row-contiguous gather, unpack.
 
-    Why: TPU gathers pay per gathered element; ten separate ``[N]``
-    gathers cost ~10x one ``[N, 10]`` row gather (rows are contiguous
-    lanes).  Resampling indices are non-decreasing (stratified /
+    Why: one ``[N, 10]`` row gather reads contiguous rows where ten
+    separate ``[N]`` gathers issue ten index streams.  Resampling
+    indices are non-decreasing (stratified /
     systematic), which the gather is annotated with.
     """
     from slam_eslam_tpu.core.state import ParticleSet

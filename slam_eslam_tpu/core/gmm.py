@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 from functools import partial as _partial
 
-# exact f32 statistics (TPU MXU default would bf16-round operands)
+# exact f32 statistics (no TF32/bf16 rounding of the operands)
 _einsum = _partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -33,12 +33,9 @@ from slam_eslam_tpu.utils import geometry
 class ParticleSet:
     """SoA particle state; all arrays share leading dim N (particle count).
 
-    World x/y are stored as SEPARATE [N] arrays (round 4): a ``[N, 2]``
-    field's default row-major TPU layout pads 2 -> 128 lanes (64x HBM
-    inflation), and the ``lax.scan`` carry adopting that layout cost
-    ~0.19 ms/step at 100k particles in boundary copies plus a padded
-    centroid reduction (round-4 trace: ``copy.99``/``copy.109``/
-    ``multiply_reduce_fusion.49``).  The ``xy`` property materialises
+    World x/y are stored as SEPARATE [N] arrays, so every per-particle
+    field is a dense vector and the ``lax.scan`` carry needs no
+    transposing copies.  The ``xy`` property materialises
     the classic ``[N, 2]`` view for read sites (XLA fuses the stack
     into consumers; only loop carries must materialise a layout).
     """

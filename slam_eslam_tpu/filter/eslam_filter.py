@@ -1,6 +1,6 @@
 """Embodied-SLAM orchestrator: the application-level API.
 
-TPU-native rebuild of ``eslam::EmbodiedSlamFilter``
+Array-program rebuild of ``eslam::EmbodiedSlamFilter``
 (``/root/reference/src/EmbodiedSlamFilter.{hpp,cpp}``): owns the contact
 odometry, pose estimator, shared or per-particle MLS maps, and the
 sensor projection pipelines; gates measurement/mapping updates on
@@ -195,16 +195,13 @@ class EmbodiedSlamFilter:
 
             @jax.jit
             def f(state, cs, q, map_state, wheel_probs, wheel_valid):
-                # production lookup: config-dispatched (Pallas window
-                # kernel with spread fallback by default; the slip
-                # update reads patch colours -> unpacked gather)
+                # production lookup: the exact packed gather with its
+                # contact fold (the slip update reads patch colours ->
+                # unpacked gather)
                 lookup = (
                     make_lookup(cfg, map_state)
                     if shared
-                    else mp.make_chain_lookup(
-                        map_state, cfg.mls_z_window,
-                        kernel=cfg.chain_kernel,
-                    )
+                    else mp.chain_lookup(map_state, cfg.mls_z_window)
                 )
                 terrain_prob = None
                 if use_slip:
@@ -269,7 +266,6 @@ class EmbodiedSlamFilter:
                     w = mp.match_cloud_all(
                         pool, p.xy, p.yaw, p.z, p.z_sigma, cloud,
                         sampling=10, sigma=0.2, z_window=cfg.mls_z_window,
-                        kernel=cfg.chain_kernel,
                     )
                     # visualWeighting = 0.1 (EmbodiedSlamFilter.cpp:219-220)
                     weight = p.weight * jnp.power(jnp.maximum(w, 1e-30), 0.1)
@@ -283,8 +279,6 @@ class EmbodiedSlamFilter:
                         update_idx,
                         patch_thickness=cfg.grid_patch_thickness,
                         gap_size=cfg.grid_gap_size,
-                        kernel=cfg.merge_kernel,
-                        group=cfg.merge_group,
                     )
                 return state, pool, n_failed
 
@@ -484,7 +478,7 @@ class EmbodiedSlamFilter:
         """Device-resident execution of a whole frame stream
         (``filter.streaming``): every per-frame update this class would
         dispatch individually runs inside ONE ``lax.scan`` dispatch —
-        the deployment/benchmark shape on remote/tunneled accelerators.
+        the deployment/benchmark shape.
 
         ``frames``: stacked pytree from ``streaming.stack_frames`` or
         ``streaming.frames_from_log``.  Requires per-particle-map mode.

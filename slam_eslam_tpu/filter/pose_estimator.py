@@ -1,6 +1,6 @@
 """Pose estimator: the eslam SIR localization filter.
 
-TPU-native rebuild of ``eslam::PoseEstimator``
+Array-program rebuild of ``eslam::PoseEstimator``
 (``/root/reference/src/PoseEstimator.{hpp,cpp}``): particles over
 (x, y, yaw, z, zSigma) driven by sampled contact-odometry deltas,
 weighted by the contact model against an MLS map, resampled on low ESS.
@@ -125,9 +125,8 @@ def project(
     dx0 = dxy[:, 0]
     dy0 = dxy[:, 1] * jnp.where(slip, shrink, 1.0)
 
-    # body->world rotation, expanded on [N] components (a [N, 2]
-    # intermediate would re-introduce the padded-lane layout the split
-    # x/y storage exists to avoid)
+    # body->world rotation, expanded on [N] components (no [N, 2]
+    # intermediate; see the split x/y storage of ParticleSet)
     c, s = jnp.cos(p.yaw), jnp.sin(p.yaw)
     x = p.x + c * dx0 - s * dy0
     y = p.y + s * dx0 + c * dy0
@@ -217,7 +216,7 @@ def update_weights(
     # batched fast path: only the map gather is vmapped; the group
     # reductions run as one-hot matmuls (see evaluate_pose_batch).
     # Lookups that handle the full [N, C, 3] batch themselves (shape-
-    # polymorphic or Pallas-windowed) declare ``batched = True``.
+    # polymorphic) declare ``batched = True``.
     batch_lookup = bind_lookup(map_lookup, p.map_id)
     res = cm.evaluate_pose_batch(
         cstate, rot, trans, meas_var, batch_lookup, cfg.contact_model,
@@ -291,7 +290,7 @@ def update(
     ``resampler``: optional override ``(key, weights, particles) ->
     (particles, idx)`` — e.g. ``parallel.resample.make_ppermute_resampler``
     for ring-hop payload exchange on a device mesh (the default gather
-    formulation is correct on a mesh too, just heavier on ICI).
+    formulation is correct on a mesh too, just heavier on the links).
 
     Returns ``(state, aux)``; ``aux.resampled`` reports whether the
     resample branch fired (map cloning hooks key off it).
@@ -315,19 +314,17 @@ def update(
         # packed single-gather copy (10 [N] gathers -> one [N,10] row
         # gather; exact — see core.filter.take_packed).  Ancestor
         # indices come from the two-level wide search
-        # (core.filter._resample_from_positions) — the searchsorted
-        # binary-search lowering cost ~0.66 ms/firing at 100k on a
-        # v5e vs ~0.52 for the wide search (tools/profile_resample.py)
+        # (core.filter._resample_from_positions; compare against
+        # searchsorted with tools/profile_resample.py)
         return pf.take_packed(p_norm, idx), idx
 
     def skip(p_norm):
         return p_norm, jnp.arange(p.n, dtype=jnp.int32)
 
     # lax.cond: the wide search + packed particle gather only run on
-    # the (~1/3 of) resampling steps; the measured alternatives —
-    # unconditional gather with an idx-only cond, or no cond at all —
-    # both lose to the 0.136 ms skip-side boundary copy
-    # (tools/profile_resample.py, round 4)
+    # resampling steps (whether an unconditional gather with an
+    # idx-only cond, or no cond at all, is faster on a GPU is not
+    # measured: tools/profile_resample.py)
     particles, idx = jax.lax.cond(do_resample, resample, skip, p_norm)
 
     state = dataclasses.replace(state, particles=particles, key=key)
@@ -349,8 +346,7 @@ def centroid(particles: ParticleSet, orientation, wrap_safe=False):
     circular mean instead (``Config.wrap_safe_centroid``).
     """
     w, _ = pf.normalize_weights(particles.weight)
-    # per-axis [N] sums (a [N, 2] weighted reduce read the lane-padded
-    # layout at 72 us/step in the round-4 trace)
+    # per-axis [N] sums over the split x/y fields
     cx = jnp.sum(particles.x * w)
     cy = jnp.sum(particles.y * w)
     if wrap_safe:

@@ -23,6 +23,7 @@ from slam_eslam_tpu.config import Config
 from slam_eslam_tpu.core.state import BodyContactState
 from slam_eslam_tpu.filter import pose_estimator as pe
 from slam_eslam_tpu.models import odometry as odom
+from slam_eslam_tpu.parallel import resample as dres
 from slam_eslam_tpu.parallel import sharding as shd
 
 
@@ -43,8 +44,11 @@ def make_filter_step(cfg: Config, map_lookup=None, mesh=None, jit=True,
 
     ``resampler``: optional resampling override forwarded to
     ``pose_estimator.update`` (e.g. the ppermute ring exchange on
-    meshes, ``parallel.resample.make_ppermute_resampler(mesh)``).
+    meshes, ``parallel.resample.make_ppermute_resampler(mesh)``); on a
+    mesh it defaults to ``parallel.resample.make_gather_resampler``.
     """
+    if resampler is None and mesh is not None:
+        resampler = dres.make_gather_resampler(mesh)
 
     def step(state, contact_state: BodyContactState, orientation, gate_ref,
              map_state=None):
@@ -78,6 +82,11 @@ def make_filter_step(cfg: Config, map_lookup=None, mesh=None, jit=True,
             return state, jnp.asarray(jnp.inf, jnp.float32)
 
         state, ess = jax.lax.cond(do_update, do, skip, state)
+        # the particles leave the step sharded like they entered it: the
+        # GPU compile gives the gate's cond replicated results otherwise
+        state = dataclasses.replace(
+            state, particles=shd.constrain_particles(state.particles, mesh)
+        )
         return state, {"ess": ess, "updated": do_update}
 
     return jax.jit(step) if jit else step
@@ -97,6 +106,7 @@ def make_scan_runner(cfg: Config, map_lookup, mesh=None):
     [T, 4].  Measurement updates run every step (the benchmark regime).
     Returns the final state plus per-step centroids [T, 3].
     """
+    resampler = None if mesh is None else dres.make_gather_resampler(mesh)
 
     def one_step(state, inp):
         cs, q = inp
@@ -106,7 +116,8 @@ def make_scan_runner(cfg: Config, map_lookup, mesh=None):
         state = dataclasses.replace(
             state, particles=shd.constrain_particles(state.particles, mesh)
         )
-        state, _ = pe.update(state, cs, q, map_lookup, cfg)
+        state, _ = pe.update(state, cs, q, map_lookup, cfg,
+                             resampler=resampler)
         state = dataclasses.replace(
             state, particles=shd.constrain_particles(state.particles, mesh)
         )

@@ -1,6 +1,6 @@
 """Terrain-signature hashing for global (re)localisation.
 
-TPU-native rebuild of ``eslam::SurfaceHash`` + ``SurfaceParam`` +
+Array-program rebuild of ``eslam::SurfaceHash`` + ``SurfaceParam`` +
 ``Buckets`` (``/root/reference/src/SurfaceHash.hpp``): precompute, for
 every map cell x every of ``angular_steps`` headings, the least-squares
 plane slope of a 4-point robot footprint, bucket candidate poses by

@@ -1,6 +1,6 @@
 """Multi-Level Surface (MLS) grids as dense structure-of-arrays.
 
-TPU-native rebuild of the capability of envire's ``MLSGrid`` /
+Array-program rebuild of the capability of envire's ``MLSGrid`` /
 ``MLSMap`` (external to the reference repo but load-bearing: per-cell
 patch lists with ``{mean, stdev, height, horizontal, update_idx, color}``,
 ``toGrid/fromGrid``, ``get(pos, patch)``, ``updateCell``, ``match``,
@@ -8,7 +8,7 @@ patch lists with ``{mean, stdev, height, horizontal, update_idx, color}``,
 ``src/EmbodiedSlamFilter.cpp:25-39,212-227``,
 ``test/testMap.cpp:236-257,304-317``).
 
-Design (TPU-first, not a translation):
+Design (fixed-shape arrays, not a translation):
 
 * A grid is a fixed-shape SoA pytree ``[nx, ny, K]`` with ``K`` patch
   slots per cell and a validity mask — no linked patch lists, no dynamic
@@ -38,10 +38,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-# Value-carrying contractions must not round f32 operands to bf16 on
-# the MXU (the TPU default): map CONTENT flows through these dots, and
-# the drift flips borderline slot-rule compares vs the exact Pallas
-# kernels (found by tests/test_tpu.py::TestCompiledMerge).
+# Value-carrying contractions must not round f32 operands (TF32 or bf16
+# passes are the GPU default): map CONTENT flows through these dots, and
+# the drift flips borderline slot-rule compares.
 _EXACT = jax.lax.Precision.HIGHEST
 
 
@@ -134,7 +133,7 @@ class MLSGrid:
 class PatchCloud:
     """Fixed-size list of fused surface patches (local frame).
 
-    The TPU-native stand-in for the reference's intermediate ``scanMap``
+    The fixed-shape stand-in for the reference's intermediate ``scanMap``
     MLS grid (``EmbodiedSlamFilter.cpp:137-160``): the projection
     pipeline fuses sensor points per cell and emits one patch per
     occupied cell.  ``match``/``merge`` consume it directly.
@@ -199,52 +198,39 @@ def get_patch(grid: MLSGrid, points, z_window=3.0):
 
 @partial(
     jax.tree_util.register_dataclass,
-    data_fields=["data", "data_t", "origin"],
+    data_fields=["data", "origin"],
     meta_fields=["resolution"],
 )
 @dataclasses.dataclass
 class PackedLookup:
     """Gather-optimised read-only view of a grid: ``[nx, ny, 2K]`` with
-    means in the first K lanes and stdevs (negative = invalid slot) in
-    the last K.  One query then costs a single contiguous-slice gather
-    instead of 3 separate gathers over mean/stdev/valid — TPU gathers
-    are per-element-costly, so halving the gathered element count nearly
-    halves the weighting step's wall time.
-
-    ``data_t`` (``[ny, 2K, nx]``) is the same content pre-transposed to
-    the Pallas window kernel's table layout: the per-step window slice
-    + leading-dim merge are then layout-preserving, instead of paying a
-    relayout transpose of the window every step (device-trace finding)."""
+    means in the first K slots and stdevs (negative = invalid slot) in
+    the last K.  One query then costs a single contiguous 2K-row gather
+    instead of 3 separate gathers over mean/stdev/valid."""
 
     data: jax.Array    # [nx, ny, 2K] float32
     origin: jax.Array  # [2]
     resolution: float
-    data_t: jax.Array | None = None  # [ny, 2K, nx] (kernel layout)
 
     @property
     def k(self):
         return self.data.shape[2] // 2
 
     @staticmethod
-    def from_grid(grid: MLSGrid, with_transposed=True):
+    def from_grid(grid: MLSGrid):
         mean = jnp.where(grid.valid, grid.mean, 0.0)
         stdev = jnp.where(grid.valid, grid.stdev, -1.0)
         data = jnp.concatenate([mean, stdev], axis=-1)
         return PackedLookup(
-            data=data,
-            data_t=(jnp.transpose(data, (1, 2, 0))
-                    if with_transposed else None),
-            origin=grid.origin,
-            resolution=grid.resolution,
+            data=data, origin=grid.origin, resolution=grid.resolution,
         )
 
 
 def get_patch_packed_cells(packed: PackedLookup, ix, iy, z,
                            z_window=3.0):
-    """``get_patch_packed`` on precomputed flat cell queries: ``ix, iy``
-    int32 ``[Q]`` (unclamped), ``z`` ``[Q]``.  Returns flat
-    ``(found, mean, stdev)`` — the cond-friendly signature shared with
-    ``ops.pallas_gather.windowed_select_cells``."""
+    """``get_patch_packed`` on precomputed cell queries: ``ix, iy``
+    int32 (unclamped, any shape), ``z`` of the same shape.  Returns
+    ``(found, mean, stdev)`` of that shape."""
     k = packed.k
     nx, ny = packed.data.shape[0], packed.data.shape[1]
     inb = (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
@@ -330,11 +316,10 @@ def _dedup_fuse_rows(lin, z, var, mask, sentinel, color=None):
     different particles can never collide because the linear id embeds
     the particle's block).
 
-    TPU-first formulation: instead of one global ``argsort`` over N*P
-    elements + 1-D segment ops, sort WITHIN rows (cheap lane-axis sort)
-    and run the per-run inverse-variance sums as one-hot ``[N, P, P]``
-    batched matmuls on the MXU (P is the small cloud size, so the
-    one-hots are tiny and the contraction is essentially free).
+    Instead of one global ``argsort`` over N*P elements + 1-D segment
+    ops, sort WITHIN rows (a batched short-axis sort) and run the
+    per-run inverse-variance sums as one-hot ``[N, P, P]`` batched
+    matmuls (P is the small cloud size, so the one-hots are tiny).
 
     Returns ``(lin_sorted [N, P], fused_z, fused_var, keep, fused_color)``
     — entries reordered within rows; ``keep`` marks one survivor per
@@ -499,7 +484,7 @@ def merge_points(grid: MLSGrid, xy, z, stdev, mask, update_idx,
                  patch_thickness=0.1, gap_size=1.5, color=None):
     """Scatter-fuse a batch of surface measurements into the grid.
 
-    The TPU equivalent of looping ``MLSGrid::updateCell`` over projected
+    The batched equivalent of looping ``MLSGrid::updateCell`` over projected
     points (``test/testMap.cpp:304-317``, envire ``MLSProjection``):
 
     1. points are bucketed by cell and Gaussian-fused per cell,

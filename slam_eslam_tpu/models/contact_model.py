@@ -1,6 +1,6 @@
 """Terrain-contact measurement model.
 
-TPU-native rebuild of ``eslam::ContactModel``
+Array-program rebuild of ``eslam::ContactModel``
 (``/root/reference/src/ContactModel.{hpp,cpp}``): the probabilistic
 likelihood of a particle pose given the robot's kinematic contact-point
 candidates and an MLS elevation map.
@@ -9,12 +9,10 @@ The reference walks contact points sequentially per particle, closing
 variable-length "groups" (wheels) as it goes (``ContactModel.cpp:117-224``).
 Here the group loop becomes mask-based segmented reductions over a fixed
 point count ``C`` (see ``BodyContactState.segments``), so the whole model
-is a branch-free vector program that ``vmap``s over particles and runs on
-the VPU; the only gather is the map lookup, injected as a batched
-callback — the same seam the reference uses
-(``ContactModel.hpp:115-118``), which keeps the model unit-testable
-against scripted fake maps and lets the Pallas patch-gather kernel slot in
-underneath.
+is a branch-free vector program that ``vmap``s over particles; the only
+gather is the map lookup, injected as a batched callback — the same seam
+the reference uses (``ContactModel.hpp:115-118``), which keeps the model
+unit-testable against scripted fake maps.
 
 Numerical note: the contact likelihood ratio pdf/cdf
 (``ContactModel.cpp:104-115``) is evaluated in log space
@@ -127,6 +125,123 @@ def contact_likelihood_ratio(z, sigma, correction):
     computed stably in log space."""
     s = sigma * correction
     return jnp.exp(norm.logpdf(z, 0.0, s) - norm.logcdf(z, 0.0, s))
+
+
+_MILLS_U0 = -3.0
+_MILLS_CF_DEPTH = 8
+
+
+def _mills_ratio(u):
+    """Inverse Mills ratio ``phi(u) / Phi(u)`` from elementwise ops.
+
+    The contact likelihood ratio (``ContactModel.cpp:104-115``) is
+    ``pdf(z;0,s)/cdf(z;0,s) = mills(z/s)/s``.  The fold evaluates it
+    with a two-branch approximation built from ``exp``/``div``/
+    ``select`` only, so the whole fold fuses into one elementwise pass:
+
+    * ``u >= -3``: ``phi/Phi`` with Abramowitz-Stegun 7.1.26 ``erfc``
+      (abs err 1.5e-7);
+    * ``u < -3``: the Laplace continued fraction
+      ``lambda(u) = x + 1/(x + 2/(x + 3/...))`` (x = -u, depth 8).
+
+    Max relative error 5.2e-5 over u in [-30, 12] vs scipy (asserted in
+    ``tests/test_contact_fold.py``).
+    """
+    u = u.astype(jnp.float32)
+    a = u * jnp.float32(-0.7071067811865476)        # -u / sqrt(2)
+    x = jnp.abs(a)
+    t = 1.0 / (1.0 + 0.3275911 * x)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    e = poly * jnp.exp(-x * x)
+    cphi = 0.5 * jnp.where(a >= 0, e, 2.0 - e)      # Phi(u)
+    phi = jnp.float32(0.3989422804014327) * jnp.exp(-0.5 * u * u)
+    lam_a = phi / jnp.maximum(cphi, 1e-38)
+    xx = jnp.maximum(-u, 0.5)
+    tcf = xx
+    for j in range(_MILLS_CF_DEPTH, 0, -1):
+        tcf = xx + j / tcf
+    return jnp.where(u >= _MILLS_U0, lam_a, tcf)
+
+
+def _contact_rows(found, mean, stdev, z, av, mv, correction):
+    """Per-query contact-model quantities of the fold.
+
+    ``found``/``mean``/``stdev`` are the z-selected lookup results (any
+    matching shape), ``z`` the query heights, ``av`` the 0/1 active
+    mask, ``mv`` the per-query measurement variance.  Returns the five
+    group-sum integrands ``(ratio, ratio*zdiff, ratio*zvar,
+    ratio*pose_var, contrib)`` replicating ``ContactModel.cpp:160-208``
+    (see ``evaluate_pose``).
+    """
+    zdiff = z - mean
+    pose_var = stdev * stdev
+    zvar = pose_var + mv
+    s = jnp.sqrt(zvar) * correction
+    ratio = _mills_ratio(zdiff / s) / s
+    contrib = av * found
+    rm = jnp.where(contrib > 0.5, ratio, 0.0)
+    return rm, rm * zdiff, rm * zvar, rm * pose_var, contrib
+
+
+def _contact_group_stats(rm, rz, rv, rp, contrib, act_col, seg_oh,
+                         n_seg):
+    """Segment sums + group-level contact math + per-particle totals.
+
+    All inputs are contact-grid arrays: rows = contact points, columns =
+    particles.  ``act_col [C, 1]`` is the active mask, ``seg_oh [C, S]``
+    the segment membership.  Returns the five per-particle rows
+    ``(d1, d2, sq, pose_var, n_contacts)`` [1, N] from which
+    ``evaluate_pose_batch`` reconstructs the reference weighting
+    (``ContactModel.cpp:262-317``):
+
+      delta  = d1 / d2
+      sum_i (zdiff_i - delta)^2 / zvar_i  =  sq - d1^2 / d2
+    """
+    tp = rm.shape[-1]
+    zero = jnp.zeros((1, tp), jnp.float32)
+    d1, d2, sq, pv, nc = zero, zero, zero, zero, zero
+    cp = rm.shape[0]
+    for s in range(n_seg):
+        mcol = seg_oh[:, s:s + 1]                       # [C, 1]
+        m = jnp.broadcast_to(mcol, (cp, tp))
+        rsum = jnp.sum(rm * m, axis=0, keepdims=True)   # [1, N]
+        zds = jnp.sum(rz * m, axis=0, keepdims=True)
+        zvs = jnp.sum(rv * m, axis=0, keepdims=True)
+        pvs = jnp.sum(rp * m, axis=0, keepdims=True)
+        ncb = jnp.sum(contrib * m, axis=0, keepdims=True)
+        act_s = jnp.sum(act_col * mcol)                 # scalar
+        # group invalid when any active member missed the map
+        # (ContactModel.cpp:189-190): n_contrib < n_active
+        ok = (ncb >= act_s - 0.5) & (ncb > 0.5) & (rsum > 1e-9)
+        okf = ok.astype(jnp.float32)
+        safe = jnp.where(ok, rsum, 1.0)
+        czd = jnp.where(ok, zds / safe, 0.0)            # cp_zdiff
+        inv = okf * safe / jnp.where(ok, zvs, 1.0)      # 1 / cp_zvar
+        d1 = d1 + czd * inv
+        d2 = d2 + inv
+        sq = sq + czd * czd * inv
+        pv = pv + okf * pvs / safe
+        nc = nc + okf
+    return d1, d2, sq, pv, nc
+
+
+def contact_fold_sums(found, mean, stdev, z, av, mv, act_col, seg_oh,
+                      correction):
+    """Contact fold on ``[C, N]`` contact-grid lookup results: the
+    likelihood ratio, group reductions and per-particle sums of
+    ``evaluate_pose_batch`` in one pass.  Returns ``[8, N]`` float32
+    rows ``(d1, d2, sq, pose_var, n_contacts, 0, 0, 0)``."""
+    cp, n = found.shape
+    rows = _contact_rows(
+        found.astype(jnp.float32), mean, jnp.abs(stdev), z, av,
+        jnp.broadcast_to(mv, (cp, n)), correction)
+    n_seg = seg_oh.shape[1]
+    d1, d2, sq, pv, nc = _contact_group_stats(
+        *rows, act_col.astype(jnp.float32), seg_oh.astype(jnp.float32),
+        n_seg)
+    return jnp.concatenate(
+        [d1, d2, sq, pv, nc, jnp.zeros((3, n), jnp.float32)], axis=0)
 
 
 def evaluate_pose(
@@ -333,15 +448,12 @@ def evaluate_pose_batch(
     terrain_prob=None,
     with_debug_points=False,
 ):
-    """Batched ``evaluate_pose`` over N particles — the TPU hot path.
+    """Batched ``evaluate_pose`` over N particles — the hot path.
 
     Semantically identical to ``jax.vmap(evaluate_pose)`` (asserted by
-    tests), but structured for the hardware: the group segmentation is a
-    property of the *shared* contact state, so the per-group segmented
-    reductions become one-hot ``[C, S]`` matmuls on the MXU instead of
-    per-particle scatters (which XLA lowers poorly inside vmap — the
-    scatter path costs ~100 ms at 100k particles; this path is
-    bandwidth-bound).
+    tests), but the group segmentation is a property of the *shared*
+    contact state, so the per-group segmented reductions become one-hot
+    ``[C, S]`` matmuls instead of per-particle scatters inside vmap.
 
     Args: ``rot [N,3,3]``, ``trans [N,3]``, ``meas_var [N]``;
     ``map_lookup_batch(points [N,C,3]) -> (found, mean, stdev, color)``
@@ -371,12 +483,11 @@ def evaluate_pose_batch(
         and not with_debug_points
     )
     if use_fold:
-        # In-kernel contact fold (ops.pallas_gather
-        # ``_fused_select_contact_kernel``): contact-grid [C, N] world
-        # queries in (contact points on sublanes, particles on lanes —
-        # every operand layout-compact), per-particle weighting stats
-        # [8, N] out; the likelihood ratio, group reductions AND the
-        # per-particle sums all run in VMEM.
+        # Contact fold (``lookup.fold``, see ``contact_fold_sums``):
+        # contact-grid [C, N] world queries in, per-particle weighting
+        # stats [8, N] out; the likelihood ratio, group reductions and
+        # per-particle sums fuse with the gather, so no per-query array
+        # is written between them.
         pxc = state.position[:, 0][:, None]                   # [C, 1]
         pyc = state.position[:, 1][:, None]
         pzc = state.position[:, 2][:, None]
@@ -414,8 +525,8 @@ def evaluate_pose_batch(
             z_var=jnp.where(d2 > 0, 1.0 / safe_d2, jnp.inf),
             pose_var=pv,
             n_contacts=n_contacts,
-            # group-level debug payloads live in the kernel only; the
-            # fold is disabled whenever they are requested
+            # the fold returns per-particle sums only; it is disabled
+            # whenever group-level debug payloads are requested
             cp_point=jnp.zeros((n, num_seg, 3), dtype),
             cp_zdiff=jnp.zeros((n, num_seg), dtype),
             cp_zvar=jnp.full((n, num_seg), jnp.inf, dtype),
@@ -427,11 +538,8 @@ def evaluate_pose_batch(
         )
     if getattr(map_lookup_batch, "soa", False):
         # SoA query path: build the world points as three FLAT [N*C]
-        # arrays with broadcast arithmetic (no einsum) — the fusion
-        # then writes exactly the flat query vectors the window kernel
-        # tiles.  The [N, C, 3] AoS array forced a layout-transposing
-        # copy + flatten worth ~0.45 ms/step at 100k particles
-        # (round-3 trace, BENCH.md).
+        # arrays with broadcast arithmetic (no einsum), so the lookup
+        # consumes flat query vectors and no [N, C, 3] array is built.
         px = state.position[None, :, 0]
         py = state.position[None, :, 1]
         pz = state.position[None, :, 2]
@@ -471,7 +579,7 @@ def evaluate_pose_batch(
     ratio_m = jnp.where(contrib, ratio, 0.0)
     miss = active[None, :] & ~found
 
-    # value-carrying one-hot reduction: must stay exact f32 on MXU
+    # value-carrying one-hot reduction: exact f32 (no TF32/bf16 passes)
     seg_sum = lambda x: jnp.dot(x, onehot,
                                 precision=jax.lax.Precision.HIGHEST)
     rsum = seg_sum(ratio_m)

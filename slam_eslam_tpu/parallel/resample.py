@@ -11,7 +11,7 @@ a ``('dp',)`` mesh the exact same statistics are preserved with:
    at 1M particles) -> every shard runs the same searchsorted and
    learns the *global* source index of each of its local output slots,
 4. an index gather of the particle pytree — cross-shard particle
-   migration that XLA lowers to all-to-all-style collectives over ICI.
+   migration that XLA lowers to all-to-all-style collectives.
 
 Two call styles:
 
@@ -31,11 +31,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-
-if hasattr(jax, "shard_map"):  # jax>=0.6
-    shard_map = jax.shard_map
-else:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def resample_sharded(key, weights, mesh):
@@ -64,6 +59,26 @@ def make_ppermute_resampler(mesh, scheme="stratified"):
             key, weights, particles, mesh, scheme=scheme
         )
         return out, idxg
+
+    return resampler
+
+
+def make_gather_resampler(mesh):
+    """Adapter for ``filter.pose_estimator.update(resampler=...)``: its
+    default stratified resample (wide search + packed particle gather)
+    with the ancestor indices pinned to ``'dp'``, so each device draws
+    and searches for its own output slots only.  Left to sharding
+    propagation, the GPU compile of the meshed filter step computes
+    every slot on every device."""
+    from slam_eslam_tpu.core import filter as pf
+
+    sharding = NamedSharding(mesh, P("dp"))
+
+    def resampler(key, weights, particles):
+        idx = jax.lax.with_sharding_constraint(
+            pf.resample_stratified(key, weights, particles.n), sharding
+        )
+        return pf.take_packed(particles, idx), idx
 
     return resampler
 
@@ -204,7 +219,7 @@ def resample_ppermute(key, weights, payload, mesh, scheme="systematic"):
         )
         return out, idxg, ess[None]
 
-    out, idxg, ess = shard_map(
+    out, idxg, ess = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P("dp"), P("dp")),
@@ -244,7 +259,7 @@ def resample_shard_map(key, weights, mesh):
         idx = jnp.clip(idx, 0, n - 1).astype(jnp.int32)
         return idx, ess[None]
 
-    idx, ess = shard_map(
+    idx, ess = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P("dp"),),

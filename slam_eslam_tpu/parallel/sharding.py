@@ -2,15 +2,14 @@
 
 The reference's only parallelism is an (unsafe, default-off) OpenMP loop
 over particles (``/root/reference/src/PoseEstimator.cpp:272-276``,
-``src/CMakeLists.txt:22-29``).  The TPU-native scale-out is
+``src/CMakeLists.txt:22-29``).  The scale-out here is
 **particle-dimension data parallelism**: every per-particle array shards
 along its leading axis over a 1-D ``('dp',)`` mesh; maps are replicated
 (shared-map mode) or block-sharded (map pool).  The filter step is pure,
 so a single ``jit`` with sharding constraints makes XLA insert the
 collectives:
 
-* weight normalisation / ESS / max-weight  -> ``psum``-style reductions
-  over ICI,
+* weight normalisation / ESS / max-weight  -> ``psum``-style reductions,
 * stratified/systematic resampling         -> all-gather of the [N]
   weight vector (4 B/particle) + a cross-shard particle gather; the
   cumsum+searchsorted formulation is *exactly* the distributed

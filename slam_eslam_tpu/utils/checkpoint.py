@@ -1,7 +1,7 @@
 """Checkpoint / resume of the full filter state.
 
 The reference has no checkpointing (SURVEY §5; map persistence exists
-only through envire serialization in a viz test).  The TPU build makes
+only through envire serialization in a viz test).  This build makes
 the whole system resumable: the filter state (particles, odometry,
 PRNG key, counters), the map (shared grid or block pool), and the
 orchestrator's host-side gate poses are one pytree, saved with Orbax.

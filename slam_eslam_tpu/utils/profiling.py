@@ -7,23 +7,23 @@ lines, ``PoseEstimator.cpp:350-351``).  Here:
   (open the dump with TensorBoard / xprof),
 * ``timed``                — wall-clock timing with device sync,
 * ``StepLogger``           — the stderr progress line, rate-limited
-  (the ``iteration: N found: M`` analogue),
-* ``kernel_stats``         — bytes/flops accounting for the two hot
-  paths (contact weighting, resampling) so measured step times convert
-  to fraction-of-speed-of-light on a given chip.
+  (the ``iteration: N found: M`` analogue).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
+import tempfile
 import time
 
 import jax
 
 
 @contextlib.contextmanager
-def trace(path="/tmp/slam_eslam_trace"):
+def trace(path=None):
+    path = path or os.path.join(tempfile.gettempdir(), "slam_eslam_trace")
     jax.profiler.start_trace(path)
     try:
         yield path
@@ -61,32 +61,3 @@ class StepLogger:
             parts = "\t".join(f"{k}: {v}" for k, v in kv.items())
             print(f"iteration: {self.i}\t{parts}", file=self.stream)
         self.i += 1
-
-
-def weighting_step_stats(n_particles, n_contacts, k_patches, bytes_per=4):
-    """Memory/compute accounting for the contact-weighting step.
-
-    Per particle x contact point: one cell gather (K patch slots x
-    mean/stdev/valid) + ~60 flops of likelihood math.  Returns a dict
-    with ``bytes_accessed`` and ``flops`` for roofline comparison
-    against chip specs (e.g. v5e ~819 GB/s HBM, ~197 TFLOPs bf16).
-    """
-    q = n_particles * n_contacts
-    gather_bytes = q * k_patches * 3 * bytes_per
-    state_bytes = n_particles * 10 * bytes_per * 2
-    flops = q * 60 + n_particles * 40
-    return {
-        "queries": q,
-        "bytes_accessed": gather_bytes + state_bytes,
-        "flops": flops,
-    }
-
-
-def speed_of_light_fraction(measured_seconds, stats, hbm_gbps=819.0,
-                            tflops=197.0):
-    """Fraction of the bandwidth/compute roofline a measured step
-    achieves (min-time model: t_ideal = max(bytes/BW, flops/FLOPS))."""
-    t_bw = stats["bytes_accessed"] / (hbm_gbps * 1e9)
-    t_fl = stats["flops"] / (tflops * 1e12)
-    t_ideal = max(t_bw, t_fl)
-    return t_ideal / max(measured_seconds, 1e-12)

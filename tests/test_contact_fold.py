@@ -1,12 +1,11 @@
-"""In-kernel contact fold (VERDICT round-2 #3): the window-lookup
-kernel computes the likelihood ratio + group reductions in VMEM and
-returns ``[5, N, S]`` group sums instead of per-query rows.
+"""Contact fold: the packed lookup's ``.fold`` computes the likelihood
+ratio + group reductions together with the gather and returns ``[8, N]``
+per-particle rows instead of per-query rows.
 
 Parity target: ``evaluate_pose_batch`` with ``fold_lookup=True`` must
-match the unfolded path (same auto lookup, same window semantics) to
-the accuracy of the in-kernel Mills-ratio approximation (~5e-5 rel on
-the ratio; see ``_mills_ratio``), through both the window-kernel branch
-and the spread-fallback exact-gather branch of the auto cond.
+match the unfolded path (same exact gather) to the accuracy of the
+fold's Mills-ratio approximation (~5e-5 rel on the ratio; see
+``_mills_ratio``), for compact and globally spread particle clouds.
 """
 
 import dataclasses
@@ -19,10 +18,9 @@ import pytest
 from slam_eslam_tpu.config import Config, ContactModelConfig
 from slam_eslam_tpu.core.state import BodyContactState, ParticleSet
 from slam_eslam_tpu.filter import pose_estimator as pe
-from slam_eslam_tpu.mapping.lookup import make_lookup
+from slam_eslam_tpu.mapping.lookup import make_lookup, shared_grid_lookup
 from slam_eslam_tpu.models import contact_model as cm
 from slam_eslam_tpu.models import sim as simlib
-from slam_eslam_tpu.ops import pallas_gather as pg
 
 
 def terrain(x, y):
@@ -59,14 +57,12 @@ def _batch_inputs(key, n, spread):
     return rot, trans, meas_var
 
 
-def _eval(grid, n, spread, fold, window=32, key=0):
+def _eval(grid, n, spread, fold, key=0):
     cmc = ContactModelConfig(
         contact_point_radius=0.0, min_contacts=2, fold_lookup=fold
     )
-    cfg = Config(
-        lookup_mode="auto", lookup_window=window, contact_model=cmc
-    )
-    lookup = make_lookup(cfg, grid, tile=1024)
+    cfg = Config(contact_model=cmc)
+    lookup = make_lookup(cfg, grid)
     state = _contact_state()
     rot, trans, meas_var = _batch_inputs(jax.random.PRNGKey(key), n,
                                          spread)
@@ -112,7 +108,7 @@ class TestMillsRatio:
         ref = np.exp(
             scipy_stats.norm.logpdf(u) - scipy_stats.norm.logcdf(u)
         )
-        got = np.asarray(pg._mills_ratio(jnp.asarray(u)))
+        got = np.asarray(cm._mills_ratio(jnp.asarray(u)))
         rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
         assert rel.max() < 1e-4, rel.max()
 
@@ -122,7 +118,7 @@ class TestMillsRatio:
         z = jnp.linspace(-2.0, 2.0, 101)
         s = jnp.float32(0.3)
         ref = cm.contact_likelihood_ratio(z, s / 0.33, 0.33)
-        got = pg._mills_ratio(z / s) / s
+        got = cm._mills_ratio(z / s) / s
         np.testing.assert_allclose(
             np.asarray(got), np.asarray(ref), rtol=1e-4
         )
@@ -130,10 +126,13 @@ class TestMillsRatio:
 
 class TestFoldParity:
     def test_lookup_advertises_fold(self, grid):
-        lk = make_lookup(Config(lookup_mode="auto"), grid)
+        lk = make_lookup(Config(), grid)
         assert callable(getattr(lk, "fold", None))
-        # the exact gather does not
-        lk2 = make_lookup(Config(lookup_mode="gather"), grid)
+        # the unpacked (colour-carrying) gather of the slip update does not
+        lk2 = make_lookup(
+            Config(contact_model=ContactModelConfig(use_slip_update=True)),
+            grid,
+        )
         assert getattr(lk2, "fold", None) is None
 
     def test_compact_cloud(self, grid):
@@ -143,16 +142,15 @@ class TestFoldParity:
         _assert_results_close(a, b)
 
     def test_spread_fallback_branch(self, grid):
-        # 12 m spread >> 3.2 m window: the cond's exact-gather branch
-        # carries the fold epilogue (contact_fold_sums)
+        # a globally spread cloud (12 m, the post-relocalisation regime)
+        # folds through the same exact gather as a compact one
         a = _eval(grid, 64, spread=6.0, fold=True)
         b = _eval(grid, 64, spread=6.0, fold=False)
         assert np.asarray(b.measurement_valid).any()
         _assert_results_close(a, b)
 
     def test_ragged_particle_count(self, grid):
-        # N*C not a multiple of the kernel tile: padded fake particles
-        # must not contribute
+        # a particle count that is no power of two
         a = _eval(grid, 37, spread=1.0, fold=True, key=5)
         b = _eval(grid, 37, spread=1.0, fold=False, key=5)
         _assert_results_close(a, b)
@@ -174,8 +172,6 @@ class TestFoldParity:
         for fold in (True, False):
             cfg = Config(
                 particle_count=n,
-                lookup_mode="auto",
-                lookup_window=32,
                 contact_model=ContactModelConfig(
                     contact_point_radius=0.0, min_contacts=2,
                     fold_lookup=fold,
@@ -183,7 +179,7 @@ class TestFoldParity:
             )
             state = pe.PoseEstimatorState.create(cfg, c)
             state = dataclasses.replace(state, particles=particles)
-            lookup = make_lookup(cfg, grid, tile=1024)
+            lookup = make_lookup(cfg, grid)
             new_state, _ = jax.jit(
                 lambda s, cs: pe.update_weights(s, cs, q, lookup, cfg)
             )(state, cs)
@@ -201,13 +197,10 @@ class TestFoldParity:
         )
 
     def test_skewed_cloud_tier_coverage(self, grid):
-        """Round-4 advisor (high): a cloud whose span just FITS a tier
-        but whose mass sits at one end must not lose far-tail contacts
-        to the tier window.  The fits gate tests the bbox span; the
-        anchor was mean-centred, so a skewed cloud (y-span 30 cells,
-        mass at the bottom, 4 particles 2.5 m up) spilled out of the
-        (128, 32) tier.  Fixed by the ``_window_anchor`` coverage
-        clamp; the oracle is the exact gather."""
+        """A skewed cloud (y-span 30 cells, mass at the bottom, 4
+        particles 2.5 m up) must keep every far-tail contact: the fold
+        matches the unfolded gather, and the unpacked ``get_patch``
+        lookup is the independent oracle of the contact counts."""
         n, n_tail = 64, 4
         y = np.full((n,), -1.3, np.float32)
         y[: n - n_tail] += np.linspace(-0.05, 0.05, n - n_tail)
@@ -225,34 +218,40 @@ class TestFoldParity:
                 min_contacts=2, fold_lookup=fold,
             )
             cfg = dataclasses.replace(cfg, contact_model=cmc)
-            lookup = make_lookup(cfg, grid, tile=1024)
+            lookup = make_lookup(cfg, grid)
             return jax.jit(
                 lambda r, t, mv: cm.evaluate_pose_batch(
                     state, r, t, mv, pe.bind_lookup(lookup, None), cmc
                 )
             )(rot, trans, meas_var)
 
-        # default tiers ((128,32) catches span 30) vs exact gather
-        a = run(Config(lookup_mode="auto"), fold=True)
-        b = run(Config(lookup_mode="gather"), fold=False)
+        a = run(Config(), fold=True)
+        b = run(Config(), fold=False)
         # every particle (incl. the tail) must keep all its contacts
         np.testing.assert_array_equal(
             np.asarray(a.n_contacts), np.asarray(b.n_contacts)
         )
         assert np.asarray(b.measurement_valid).all()
         _assert_results_close(a, b)
-        # unfolded auto path (full-window fits cond) too
-        c = run(Config(lookup_mode="auto"), fold=False)
-        _assert_results_close(c, b)
+        # the unpacked gather (no fold, no SoA queries) agrees too
+        cmc = ContactModelConfig(contact_point_radius=0.0, min_contacts=2,
+                                 fold_lookup=False)
+        unpacked = pe.bind_lookup(shared_grid_lookup(grid, packed=False),
+                                  None)
+        c = jax.jit(
+            lambda r, t, mv: cm.evaluate_pose_batch(
+                state, r, t, mv, unpacked, cmc
+            )
+        )(rot, trans, meas_var)
+        _assert_results_close(c, b, rtol=1e-5)
 
     def test_debug_points_disable_fold(self, grid):
         # with_debug_points needs per-query data — the fold must bow out
         cmc = ContactModelConfig(
             contact_point_radius=0.0, min_contacts=2, fold_lookup=True
         )
-        cfg = Config(lookup_mode="auto", lookup_window=32,
-                     contact_model=cmc)
-        lookup = make_lookup(cfg, grid, tile=1024)
+        cfg = Config(contact_model=cmc)
+        lookup = make_lookup(cfg, grid)
         state = _contact_state()
         rot, trans, meas_var = _batch_inputs(jax.random.PRNGKey(2), 16,
                                              1.0)

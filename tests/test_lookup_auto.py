@@ -1,11 +1,10 @@
-"""Production lookup seam: spread-aware auto dispatch + parity switches.
+"""Production lookup seam + parity switches.
 
-Covers VERDICT round-1 items: the Pallas window kernel wired into the
-production API with an on-device spread fallback (a hash-reinjected,
-globally spread cloud must still get correct measurements), the
-config-selectable Chitta weighting (``ContactModel.hpp:168-173``), the
-wrap-safe centroid yaw option, and slip-point debug capture
-(``PoseParticle.hpp:45-50``).
+Covers the exact packed gather behind ``make_lookup`` (a compact
+tracking cloud and a hash-reinjected, globally spread cloud must both
+get exact measurements), the config-selectable Chitta weighting
+(``ContactModel.hpp:168-173``), the wrap-safe centroid yaw option, and
+slip-point debug capture (``PoseParticle.hpp:45-50``).
 """
 
 import dataclasses
@@ -45,52 +44,57 @@ def _query_points(key, n, c, spread):
     return jnp.concatenate([xy, z[..., None] + 0.05], axis=-1)
 
 
+def _oracle(grid, pts, z_window=3.0):
+    """NumPy reference of ``MLSGrid`` patch lookup: per query, the
+    valid slot of its cell nearest to z within ``z_window``."""
+    mean = np.asarray(grid.mean)
+    stdev = np.asarray(grid.stdev)
+    valid = np.asarray(grid.valid)
+    origin = np.asarray(grid.origin)
+    flat = np.asarray(pts).reshape(-1, 3)
+    found = np.zeros(len(flat), bool)
+    m_out = np.zeros(len(flat), np.float32)
+    s_out = np.zeros(len(flat), np.float32)
+    for q, (x, y, z) in enumerate(flat):
+        ix = int(np.floor((np.float32(x) - origin[0]) / grid.resolution))
+        iy = int(np.floor((np.float32(y) - origin[1]) / grid.resolution))
+        if not (0 <= ix < grid.nx and 0 <= iy < grid.ny):
+            continue
+        d = np.where(valid[ix, iy], np.abs(mean[ix, iy] - z), np.inf)
+        if d.min() <= z_window:
+            k = int(np.argmin(d))
+            found[q] = True
+            m_out[q], s_out[q] = mean[ix, iy, k], stdev[ix, iy, k]
+    shape = np.asarray(pts).shape[:-1]
+    return (found.reshape(shape), m_out.reshape(shape),
+            s_out.reshape(shape))
+
+
 class TestAutoLookup:
-    def test_compact_cloud_matches_gather(self, grid):
-        cfg = Config(lookup_mode="auto", lookup_window=32)
-        auto = make_lookup(cfg, grid, tile=1024)
-        exact = shared_grid_lookup(grid)
-        pts = _query_points(jax.random.PRNGKey(0), 64, 8, spread=1.0)
-        fa, ma, sa, _ = jax.jit(lambda p: auto(None, p))(pts)
-        fe, me, se, _ = exact(None, pts)
-        np.testing.assert_array_equal(np.asarray(fa), np.asarray(fe))
-        np.testing.assert_allclose(
-            np.asarray(ma)[np.asarray(fe)], np.asarray(me)[np.asarray(fe)],
-            atol=1e-5,
-        )
+    @pytest.mark.parametrize("spread", [1.0, 6.0])
+    def test_compact_and_spread_clouds_match_oracle(self, grid, spread):
+        """Tracking (1 m) and relocalising (12 m) clouds take the same
+        exact gather: found, mean and stdev equal the NumPy oracle."""
+        lk = make_lookup(Config(), grid)
+        pts = _query_points(jax.random.PRNGKey(0), 64, 8, spread=spread)
+        fa, ma, sa, _ = jax.jit(lambda p: lk(None, p))(pts)
+        fo, mo, so = _oracle(grid, pts)
+        assert fo.any()
+        np.testing.assert_array_equal(np.asarray(fa), fo)
+        np.testing.assert_array_equal(np.asarray(ma)[fo], mo[fo])
+        np.testing.assert_array_equal(np.asarray(sa)[fo], so[fo])
 
-    def test_spread_cloud_falls_back(self, grid):
-        # a 32-cell (3.2 m) window cannot cover a 12 m spread — the
-        # fallback branch must fire and return exact full-grid results
-        cfg = Config(lookup_mode="auto", lookup_window=32)
-        auto = make_lookup(cfg, grid, tile=1024)
-        exact = shared_grid_lookup(grid)
-        pts = _query_points(jax.random.PRNGKey(1), 64, 8, spread=6.0)
-        fa, ma, sa, _ = jax.jit(lambda p: auto(None, p))(pts)
-        fe, me, se, _ = exact(None, pts)
-        found = np.asarray(fe)
-        assert found.any()
-        np.testing.assert_array_equal(np.asarray(fa), found)
-        np.testing.assert_allclose(
-            np.asarray(ma)[found], np.asarray(me)[found], atol=1e-6
+    def test_out_of_grid_queries_miss(self, grid):
+        lk = make_lookup(Config(), grid)
+        pts = jnp.array([[[7.0, 0.0, 0.0], [0.0, -7.0, 0.0],
+                          [0.0, 0.0, 0.1], [-6.45, 6.35, 0.0]]])
+        found, _, _, _ = lk(None, pts)
+        np.testing.assert_array_equal(
+            np.asarray(found), [[False, False, True, False]]
         )
-        np.testing.assert_allclose(
-            np.asarray(sa)[found], np.asarray(se)[found], atol=1e-6
-        )
-
-    def test_window_mode_misses_outside(self, grid):
-        # sanity: without fallback the same spread cloud reports misses
-        cfg = Config(lookup_mode="window", lookup_window=32)
-        win = make_lookup(cfg, grid, tile=1024)
-        exact = shared_grid_lookup(grid)
-        pts = _query_points(jax.random.PRNGKey(1), 64, 8, spread=6.0)
-        fw, _, _, _ = jax.jit(lambda p: win(None, p))(pts)
-        fe, _, _, _ = exact(None, pts)
-        assert np.asarray(fw).sum() < np.asarray(fe).sum()
 
     def test_slip_update_forces_gather(self, grid):
         cfg = Config(
-            lookup_mode="auto",
             contact_model=ContactModelConfig(use_slip_update=True),
         )
         lk = make_lookup(cfg, grid)
@@ -98,18 +102,20 @@ class TestAutoLookup:
         found, mean, stdev, color = lk(None, pts)
         # the unpacked gather path carries colour
         assert color.shape == pts.shape[:-1] + (3,)
+        fo, mo, _ = _oracle(grid, pts)
+        np.testing.assert_array_equal(np.asarray(found), fo)
+        np.testing.assert_array_equal(np.asarray(mean)[fo], mo[fo])
 
 
 class TestFilterAutoLookup:
     def test_spread_filter_update_equals_gather(self, grid):
         """A globally spread particle cloud (the post-reinjection
-        regime) must produce identical weights through the auto lookup
-        and the exact gather — the VERDICT correctness hazard."""
+        regime) must produce the same weights through the production
+        lookup (packed gather + fold) and the unpacked ``get_patch``
+        gather without fold."""
         n, c = 64, 8
         cfg = Config(
             particle_count=n,
-            lookup_mode="auto",
-            lookup_window=32,
             contact_model=ContactModelConfig(
                 contact_point_radius=0.0, min_contacts=2
             ),
@@ -135,9 +141,14 @@ class TestFilterAutoLookup:
         q = jnp.asarray([1.0, 0.0, 0.0, 0.0], jnp.float32)
 
         out = {}
-        for mode in ("auto", "gather"):
-            c2 = dataclasses.replace(cfg, lookup_mode=mode)
-            lk = make_lookup(c2, grid)
+        unfolded = dataclasses.replace(
+            cfg, contact_model=dataclasses.replace(
+                cfg.contact_model, fold_lookup=False)
+        )
+        for mode, c2, lk in (
+            ("auto", cfg, make_lookup(cfg, grid)),
+            ("gather", unfolded, shared_grid_lookup(grid, packed=False)),
+        ):
             s2, _ = jax.jit(
                 lambda s: pe.update_weights(s, cs, q, lk, c2)
             )(state)
@@ -219,9 +230,8 @@ class TestSoAQueryPath:
         n, c = 32, 8
         cfg_cm = ContactModelConfig(contact_point_radius=0.01,
                                     min_contacts=2)
-        cfg = Config(lookup_mode="auto", lookup_window=32,
-                     contact_model=cfg_cm)
-        lk = make_lookup(cfg, grid, tile=1024)
+        cfg = Config(contact_model=cfg_cm)
+        lk = make_lookup(cfg, grid)
         assert getattr(lk, "soa", False)
 
         def lk_aos(points):  # same lookup, AoS entry (no .soa attr)

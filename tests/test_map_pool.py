@@ -189,126 +189,6 @@ class TestFusedMergeMatch:
         )
         assert int(jnp.max(pool.update_idx)) == 42
 
-    def test_pallas_merge_matches_xla(self):
-        """The per-block streaming Pallas merge kernel (interpret mode
-        on CPU) must reproduce the dedup + gather/scatter XLA path —
-        same slot decisions, same fused values, untouched blocks kept."""
-        pool = make_pool(n=4, b=10, with_color=False)
-        # pre-populate some patches so fuse/gap/insert all trigger
-        pool = write_cell(pool, 0, 0.1, 0.1, 1.02)   # fuses (|dz|<=0.1)
-        pool = write_cell(pool, 1, -0.9, 0.4, 1.9)   # gap-extends
-        cloud = self._cloud(n=48, z=1.0)
-        xy = jnp.zeros((4, 2))
-        yaw = jnp.array([0.0, 0.3, -0.2, 1.0])
-        z_off = jnp.array([0.0, 1.0, 0.0, -0.5])
-        os_ = jnp.array([0.05, 0.0, 0.1, 0.2])
-        args = (pool, xy, yaw, z_off, os_, cloud, 7)
-        px = mp.merge_cloud_all(*args, kernel="xla")
-        pk = mp.merge_cloud_all(*args, kernel="pallas")
-        np.testing.assert_array_equal(
-            np.asarray(px.valid), np.asarray(pk.valid)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(px.horizontal), np.asarray(pk.horizontal)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(px.update_idx), np.asarray(pk.update_idx)
-        )
-        np.testing.assert_allclose(
-            np.asarray(px.mean), np.asarray(pk.mean), rtol=1e-5,
-            atol=1e-6,
-        )
-        np.testing.assert_allclose(
-            np.asarray(px.stdev), np.asarray(pk.stdev), rtol=1e-5,
-            atol=1e-6,
-        )
-        np.testing.assert_allclose(
-            np.asarray(px.height), np.asarray(pk.height), rtol=1e-5,
-            atol=1e-6,
-        )
-        # unvisited blocks (4..9) kept their contents bit-for-bit
-        np.testing.assert_array_equal(
-            np.asarray(pk.mean[4:]), np.asarray(pool.mean[4:])
-        )
-
-    def test_pallas_merge_multi_point_cells(self):
-        """Several points landing in one cell must inverse-variance
-        fuse identically in both paths (the kernel's one-hot matmul
-        accumulation vs the XLA sort-dedup)."""
-        pool = make_pool(n=4, b=10, with_color=False)
-        n_pts = 32
-        xy = jnp.tile(jnp.array([[0.3, 0.3], [0.3, 0.8]]), (16, 1))
-        cloud = PatchCloud.create(
-            xy=xy,
-            z=jnp.linspace(0.9, 1.1, n_pts),
-            stdev=jnp.linspace(0.05, 0.3, n_pts),
-            valid=jnp.arange(n_pts) % 5 != 4,
-        )
-        args = (pool, jnp.zeros((4, 2)), jnp.zeros(4), jnp.zeros(4),
-                jnp.zeros(4), cloud, 1)
-        px = mp.merge_cloud_all(*args, kernel="xla")
-        pk = mp.merge_cloud_all(*args, kernel="pallas")
-        np.testing.assert_array_equal(
-            np.asarray(px.valid), np.asarray(pk.valid)
-        )
-        np.testing.assert_allclose(
-            np.asarray(px.mean), np.asarray(pk.mean), rtol=1e-5,
-            atol=1e-6,
-        )
-        np.testing.assert_allclose(
-            np.asarray(px.stdev), np.asarray(pk.stdev), rtol=1e-5,
-            atol=1e-6,
-        )
-
-    def test_pallas_chain_lookup_matches_xla(self):
-        """The streaming chain-lookup kernel (interpret mode on CPU)
-        must reproduce the vmapped XLA chain_lookup: same hits, same
-        selected patches, head-first chain priority, empty chain
-        entries skipped."""
-        from slam_eslam_tpu.ops import pallas_chain
-
-        pool = make_pool(n=4, b=10, with_color=False)
-        cloud = self._cloud(n=48, z=1.0)
-        pool = mp.merge_cloud_all(
-            pool, jnp.zeros((4, 2)), jnp.zeros(4),
-            jnp.array([0.0, 10.0, 0.0, 0.0]), jnp.zeros(4), cloud, 1,
-            kernel="xla",
-        )
-        # grow particle 1's chain so a tail level must resolve
-        pool, _ = mp.rollover(
-            pool, jnp.array([[0.0, 0.0], [8.0, 0.0], [0.0, 0.0],
-                             [0.0, 0.0]]), threshold=3.0,
-        )
-        # queries: on-cloud points (hits incl. through the chain tail),
-        # plus out-of-bounds and out-of-z-window misses
-        base = jnp.concatenate(
-            [cloud.xy[:12], jnp.full((12, 1), 1.0)], axis=1
-        )
-        pts = jnp.stack([
-            base,                                        # z = 1 hits p0
-            base.at[:, 2].set(11.0),                     # hits p1 tail
-            base.at[:, 0].add(20.0),                     # out of bounds
-            base.at[:, 2].set(6.0),                      # z-window miss
-        ], axis=0)
-
-        ref = mp.chain_lookup(pool, z_window=3.0)
-        rf, rm, rs, _ = jax.vmap(ref)(jnp.arange(4), pts)
-        kf, km, ks = pallas_chain.chain_lookup_blocks(
-            pool.mean, pool.stdev, pool.meta, pool.chain, pool.origin,
-            pool.resolution, pts, k=pool.k, z_window=3.0,
-            interpret=True,
-        )
-        f = np.asarray(rf)
-        assert f[0].sum() == 12 and f[1].sum() == 12, "fixture weak"
-        assert f[2].sum() == 0 and f[3].sum() == 0
-        np.testing.assert_array_equal(f, np.asarray(kf))
-        np.testing.assert_allclose(
-            np.asarray(km)[f], np.asarray(rm)[f], rtol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(ks)[f], np.asarray(rs)[f], rtol=1e-6
-        )
-
     def test_jit_merge(self):
         pool = make_pool()
         cloud = self._cloud()
@@ -320,57 +200,6 @@ class TestFusedMergeMatch:
         )
         out = f(pool, cloud)
         assert int(jnp.sum(out.valid)) > 0
-
-    def test_merge_parity_on_dense_random_pool(self):
-        """Kernel-vs-XLA parity on a HALF-FULL random pool (k=4).
-
-        Regression test for the round-3 `_group_min`/`_group_sum` roll
-        direction bug: `pltpu.roll(x, s)[l] = x[l-s]` (jnp.roll
-        semantics), and the swapped shifts mixed NEIGHBOURING cells'
-        slot metrics into each group — invisible on the sparse
-        insert-mostly fixtures above (empty neighbour groups carry the
-        same masked sentinel), catastrophic on dense pools where the
-        fuse/gap/evict rules read existing patches."""
-        n, b, nx, ny, k = 16, 20, 40, 40, 4
-        rng = np.random.default_rng(11)
-        shape = (b, nx, ny * k)
-        pool = mp.MapPool(
-            mean=jnp.asarray(rng.normal(size=shape).astype(np.float32)),
-            stdev=jnp.asarray(
-                (0.01 + 0.2 * rng.random(shape)).astype(np.float32)),
-            height=jnp.zeros(shape, jnp.float32),
-            meta=jnp.asarray(
-                ((rng.random(shape) < 0.5).astype(np.int32)) | 2),
-            color=None,
-            origin=jnp.asarray(
-                (rng.normal(size=(b, 2)) * 2).astype(np.float32)),
-            allocated=jnp.ones((b,), bool),
-            chain=jnp.broadcast_to(
-                jnp.arange(n, dtype=jnp.int32)[:, None], (n, 3)),
-            resolution=0.25,
-            nx=nx, ny=ny, k=k,
-        )
-        p = 96
-        xy = rng.uniform(0.0, 10.0, size=(p, 2)).astype(np.float32)
-        xy += np.asarray(pool.origin[0])
-        cloud = PatchCloud.create(
-            xy=jnp.asarray(xy),
-            z=jnp.asarray(rng.normal(size=(p,)).astype(np.float32)),
-            stdev=jnp.full((p,), 0.05),
-            valid=jnp.ones((p,), bool),
-        )
-        args = (pool, jnp.zeros((n, 2)), jnp.zeros(n), jnp.zeros(n),
-                jnp.full((n,), 0.01), cloud, 7)
-        px = mp.merge_cloud_all(*args, kernel="xla")
-        pk = mp.merge_cloud_all(*args, kernel="pallas")
-        np.testing.assert_array_equal(
-            np.asarray(px.meta), np.asarray(pk.meta))
-        v = np.asarray((px.meta & 1) != 0)
-        for fld in ("mean", "stdev", "height"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(pk, fld))[v],
-                np.asarray(getattr(px, fld))[v], rtol=1e-5, atol=1e-6)
-
 
 class TestNegativeInformation:
     """Laser-path negative information on per-particle active grids
@@ -470,7 +299,7 @@ class TestCompactStorage:
                 jnp.array([0.0, 10.0, 0.0, 0.0]), jnp.zeros(4), cloud, 5)
         outs = {}
         for dt in (jnp.float32, jnp.bfloat16):
-            pool = mp.merge_cloud_all(mk(dt), *args, kernel="xla")
+            pool = mp.merge_cloud_all(mk(dt), *args)
             assert pool.mean.dtype == dt
             lookup = mp.chain_lookup(pool, z_window=3.0)
             pt = np.asarray(cloud.xy[0])
@@ -484,173 +313,3 @@ class TestCompactStorage:
             "<class 'jax.numpy.bfloat16'>"
         ]
         np.testing.assert_allclose(b[0], a[0], rtol=1e-2, atol=1e-2)
-
-    def test_bf16_pallas_merge_matches_xla(self):
-        template = MLSGrid.create(16, 16, 0.5, (-4.0, -4.0), k=2)
-        pool0 = mp.MapPool.from_template(
-            template, 4, 8, 2, with_color=False, dtype=jnp.bfloat16
-        )
-        key = jax.random.PRNGKey(9)
-        n = 24
-        xy = jax.random.uniform(key, (n, 2), minval=-2.0, maxval=2.0)
-        cloud = PatchCloud.create(
-            xy=xy,
-            z=jax.random.normal(jax.random.PRNGKey(1), (n,)),
-            stdev=jnp.full((n,), 0.1),
-            valid=jnp.ones((n,), bool),
-        )
-        args = (jnp.zeros((4, 2)), jnp.zeros(4), jnp.zeros(4),
-                jnp.zeros(4), cloud, 3)
-        px = mp.merge_cloud_all(pool0, *args, kernel="xla")
-        pk = mp.merge_cloud_all(pool0, *args, kernel="pallas")
-        np.testing.assert_array_equal(
-            np.asarray(px.meta), np.asarray(pk.meta)
-        )
-        for fld in ("mean", "stdev", "height"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(px, fld), np.float32),
-                np.asarray(getattr(pk, fld), np.float32),
-                rtol=2e-2, atol=2e-2,
-            )
-
-
-class TestGroupedMerge:
-    """merge_blocks_grouped (G blocks/step via manual DMA) must be
-    bit-identical to the per-block kernel, including ragged tails
-    (n % group != 0) and group > n."""
-
-    def _setup(self, n=5):
-        pool = make_pool(n=n, b=12, with_color=False)
-        pool = write_cell(pool, 0, 0.1, 0.1, 1.02)
-        pool = write_cell(pool, 1, -0.9, 0.4, 1.9)
-        key = jax.random.PRNGKey(11)
-        xy_c = jax.random.uniform(key, (48, 2), minval=-2.0, maxval=2.0)
-        cloud = PatchCloud.create(
-            xy=xy_c, z=jnp.full((48,), 1.0),
-            stdev=jnp.full((48,), 0.1), valid=jnp.ones((48,), bool),
-        )
-        xy = jnp.zeros((n, 2))
-        yaw = jnp.linspace(-1.0, 1.0, n)
-        z_off = jnp.linspace(-0.5, 1.0, n)
-        os_ = jnp.full((n,), 0.05)
-        return pool, (xy, yaw, z_off, os_, cloud)
-
-    def _assert_pools_equal(self, a, b):
-        # slot decisions must agree exactly; float fields may differ by
-        # a ULP (the grouped kernel's accumulation dot contracts over
-        # G*P instead of P terms — different HIGHEST-precision
-        # decomposition order)
-        np.testing.assert_array_equal(
-            np.asarray(a.meta), np.asarray(b.meta), err_msg="meta"
-        )
-        for f in ("mean", "stdev", "height"):
-            np.testing.assert_allclose(
-                np.asarray(getattr(a, f)).astype(np.float32),
-                np.asarray(getattr(b, f)).astype(np.float32),
-                rtol=1e-6, atol=1e-7, err_msg=f,
-            )
-
-    def test_ragged_group(self):
-        pool, args = self._setup(n=5)
-        p1 = mp.merge_cloud_all(pool, *args, 7, kernel="pallas")
-        p4 = mp.merge_cloud_all(pool, *args, 7, kernel="pallas",
-                                group=4)
-        self._assert_pools_equal(p1, p4)
-
-    def test_group_exceeds_n(self):
-        pool, args = self._setup(n=3)
-        p1 = mp.merge_cloud_all(pool, *args, 2, kernel="pallas")
-        pg = mp.merge_cloud_all(pool, *args, 2, kernel="pallas",
-                                group=8)
-        self._assert_pools_equal(p1, pg)
-
-    def test_exact_group(self):
-        pool, args = self._setup(n=4)
-        p1 = mp.merge_cloud_all(pool, *args, 1, kernel="pallas")
-        pg = mp.merge_cloud_all(pool, *args, 1, kernel="pallas",
-                                group=2)
-        self._assert_pools_equal(p1, pg)
-
-    def test_grouped_bf16_pool(self):
-        template = MLSGrid.create(20, 20, 0.5, (-5.0, -5.0), k=2)
-        pool = mp.MapPool.from_template(
-            template, 5, 12, 3, with_color=False, dtype=jnp.bfloat16
-        )
-        _, args = self._setup(n=5)
-        p1 = mp.merge_cloud_all(pool, *args, 3, kernel="pallas")
-        pg = mp.merge_cloud_all(pool, *args, 3, kernel="pallas",
-                                group=4)
-        self._assert_pools_equal(p1, pg)
-
-
-class TestMatchKernel:
-    def test_pallas_match_matches_xla(self):
-        """match_cloud_all(kernel='pallas') (interpret on CPU) must
-        reproduce the vmapped XLA gather scores — hits, misses,
-        sampling mask and normalisation included."""
-        pool = make_pool(n=4, b=10, with_color=False)
-        key = jax.random.PRNGKey(3)
-        n_pts = 37  # deliberately not a multiple of sampling
-        xy = jax.random.uniform(key, (n_pts, 2), minval=-2.0, maxval=2.0)
-        cloud = PatchCloud.create(
-            xy=xy, z=jnp.full((n_pts,), 0.5),
-            stdev=jnp.full((n_pts,), 0.1),
-            valid=jnp.arange(n_pts) % 5 != 4,
-        )
-        pxy = jnp.zeros((4, 2))
-        yaw = jnp.array([0.0, 0.3, 0.0, 0.0])
-        pool = mp.merge_cloud_all(
-            pool, pxy, yaw, jnp.zeros(4), jnp.zeros(4), cloud, 0
-        )
-        zo = jnp.array([0.0, 2.0, 0.1, -5.0])
-        zs = jnp.array([0.0, 0.1, 0.2, 0.0])
-        args = (pool, pxy, yaw, zo, zs, cloud)
-        for sampling in (1, 3, 10):
-            sx = mp.match_cloud_all(*args, sampling=sampling,
-                                    kernel="xla")
-            sp = mp.match_cloud_all(*args, sampling=sampling,
-                                    kernel="pallas")
-            np.testing.assert_allclose(
-                np.asarray(sp), np.asarray(sx), rtol=1e-5, atol=1e-7,
-                err_msg=f"sampling={sampling}",
-            )
-
-
-class TestChainKernelChunking:
-    def test_chunked_grid_matches_direct(self):
-        """Particle counts whose flat chain exceeds the SMEM
-        scalar-prefetch budget run the kernel in sequential chunks
-        (lax.map) — results must be identical, including ragged tails
-        (n not a multiple of the chunk)."""
-        from slam_eslam_tpu.ops import pallas_chain
-
-        pool = make_pool(n=4, b=10, with_color=False)
-        pool = write_cell(pool, 0, 1.0, 1.0, 2.0)
-        pool = write_cell(pool, 2, -2.0, 0.0, 0.5)
-        # 7 particles, chains referencing the 4 originals
-        chain = jnp.asarray(
-            [[0, -1, -1], [1, 0, -1], [2, -1, -1], [3, 2, -1],
-             [0, 2, -1], [2, 0, -1], [1, -1, -1]], jnp.int32,
-        )
-        rng = np.random.default_rng(5)
-        pts = jnp.asarray(
-            rng.uniform(-4, 4, size=(7, 6, 3)).astype(np.float32)
-        )
-        pts = pts.at[:, 0].set(jnp.array([1.0, 1.0, 2.0]))  # known hit
-        args = (pool.mean, pool.stdev, pool.meta, chain, pool.origin,
-                pool.resolution, pts)
-        kw = dict(k=pool.k, z_window=3.0, interpret=True)
-        rf, rm, rs = pallas_chain.chain_lookup_blocks(*args, **kw)
-        for chunk in (2, 3, 8):
-            cf, cm, cs = pallas_chain.chain_lookup_blocks(
-                *args, **kw, chunk_particles=chunk
-            )
-            np.testing.assert_array_equal(
-                np.asarray(rf), np.asarray(cf), err_msg=f"chunk={chunk}"
-            )
-            np.testing.assert_allclose(
-                np.asarray(rm), np.asarray(cm), err_msg=f"chunk={chunk}"
-            )
-            np.testing.assert_allclose(
-                np.asarray(rs), np.asarray(cs), err_msg=f"chunk={chunk}"
-            )

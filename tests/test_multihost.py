@@ -1,7 +1,7 @@
 """Multi-host (multi-process) runtime wiring.
 
-The reference has no distributed code at all (SURVEY §2c); the TPU
-build adds a ``jax.distributed`` runtime layer.  Real DCN hardware is
+The reference has no distributed code at all (SURVEY §2c); this build
+adds a ``jax.distributed`` runtime layer.  Real DCN hardware is
 not available in CI, so this launches a genuine 2-process local CPU
 cluster (coordinator + worker over localhost) and checks the global
 normalize/ESS/systematic-resample against the single-process oracle —

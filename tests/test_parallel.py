@@ -55,6 +55,27 @@ class TestDistributedResample:
         idx_ref = pf.resample_systematic(key, wn, 64)
         np.testing.assert_array_equal(np.asarray(idx_a), np.asarray(idx_ref))
 
+    @pytest.mark.parametrize("n", [64, 1000])
+    def test_gather_resampler_matches_default(self, mesh, n):
+        """The mesh default of the filter step: the single-device
+        stratified resample + packed gather, indices sharded."""
+        from slam_eslam_tpu.core.state import ParticleSet
+
+        key = jax.random.PRNGKey(3)
+        w = jax.random.uniform(jax.random.PRNGKey(4), (n,)) + 0.01
+        wn, _ = pf.normalize_weights(w)
+        p = dataclasses.replace(ParticleSet.zeros(n), weight=wn,
+                                yaw=jnp.arange(n, dtype=jnp.float32))
+        sh = shd.particle_sharding(mesh)
+        out, idx = jax.jit(dres.make_gather_resampler(mesh))(
+            key, jax.device_put(wn, sh), shd.constrain_particles(p, mesh)
+        )
+        idx_ref = pf.resample_stratified(key, wn, n)
+        np.testing.assert_array_equal(np.asarray(idx), np.asarray(idx_ref))
+        np.testing.assert_array_equal(np.asarray(out.yaw),
+                                      np.asarray(idx_ref, np.float32))
+        assert idx.sharding.spec == jax.sharding.PartitionSpec("dp")
+
     def test_degenerate_weights_uniform_reset(self, mesh):
         key = jax.random.PRNGKey(0)
         w = jnp.zeros((64,))
@@ -167,46 +188,47 @@ class TestPpermuteResample:
 
 
 class TestShardedFilterStep:
-    def test_windowed_lookup_shard_map(self, mesh):
-        """The Pallas window lookup must run shard-locally on a mesh
-        (each shard windows its own query cloud) and match the
-        replicated result."""
+    def test_fold_lookup_on_mesh(self, mesh):
+        """The production lookup's contact fold built for the mesh runs
+        shard-locally over particle-sharded ``[C, N]`` queries (the map
+        replicated) and must match the single-device result."""
         import numpy as _np
 
-        from slam_eslam_tpu.mapping import mls_grid
+        from slam_eslam_tpu.config import Config
+        from slam_eslam_tpu.mapping.lookup import make_lookup
         from slam_eslam_tpu.models import sim as simlib
-        from slam_eslam_tpu.ops import pallas_gather as pg
 
         terrain = lambda x, y: 0.25 * _np.sin(1.3 * _np.asarray(x))
         grid = simlib.terrain_grid(
             terrain, nx=64, ny=64, resolution=0.1, origin=(-3.2, -3.2)
         )
-        # f32 MXU dtype: the CPU backend cannot execute bf16 dots inside
-        # shard_map (bf16 is the TPU fast path only)
-        lk_single = pg.windowed_grid_lookup(
-            grid, window=32, interpret=True, mxu_dtype=jnp.float32
+        lk = make_lookup(Config(), grid)
+        lk_mesh = make_lookup(Config(), grid, mesh=mesh)
+        c, n = 4, 64
+        xy = jax.random.uniform(jax.random.PRNGKey(0), (2, c, n),
+                                minval=-0.8, maxval=0.8)
+        z = jnp.asarray(terrain(_np.asarray(xy[0]), 0.0) + 0.05,
+                        jnp.float32)
+        queries = (xy[0], xy[1], z)
+        act = jnp.ones((c, 1), jnp.float32)
+        mv = jnp.full((1, n), 0.01, jnp.float32)
+        onehot = jnp.asarray(_np.eye(c, 2, k=0, dtype=_np.float32)
+                             + _np.eye(c, 2, k=-2, dtype=_np.float32))
+
+        def fold(lookup):
+            return jax.jit(lambda q, m: lookup.fold(
+                q, act, m, onehot=onehot, correction=0.33))
+
+        a = fold(lk)(queries, mv)
+        cols = jax.sharding.NamedSharding(
+            mesh, jax.sharding.PartitionSpec(None, "dp")
         )
-        lk_mesh = pg.windowed_grid_lookup(
-            grid, window=32, interpret=True, mesh=mesh,
-            mxu_dtype=jnp.float32,
-        )
-        pts = jnp.concatenate(
-            [
-                jax.random.uniform(jax.random.PRNGKey(0), (64, 4, 2),
-                                   minval=-0.8, maxval=0.8),
-                jnp.zeros((64, 4, 1)),
-            ],
-            axis=-1,
-        )
-        sh = jax.sharding.NamedSharding(
-            mesh, jax.sharding.PartitionSpec("dp")
-        )
-        a = lk_single(None, pts)
-        b = jax.jit(lambda p: lk_mesh(None, p))(jax.device_put(pts, sh))
-        np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-        np.testing.assert_allclose(
-            np.asarray(a[1]), np.asarray(b[1]), rtol=1e-6
-        )
+        b = fold(lk_mesh)(jax.device_put(queries, cols),
+                          jax.device_put(mv, cols))
+        assert not b.sharding.is_fully_replicated
+        assert float(jnp.sum(a[4])) > 0
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-6)
 
     def test_full_step_on_mesh(self, mesh):
         # the dryrun path: full filter step sharded dp over 8 devices
@@ -227,7 +249,8 @@ class TestShardedFilterStep:
         out_single, _ = f_single(state, cs, q, gate)
 
         state_sh = shd.shard_state(state, mesh)
-        f_mesh = steplib.make_filter_step(cfg, lookup, mesh=mesh)
+        mesh_lookup = g._build(64, nx=32, ny=32, mesh=mesh)[1]
+        f_mesh = steplib.make_filter_step(cfg, mesh_lookup, mesh=mesh)
         out_mesh, _ = f_mesh(state_sh, cs, q, gate)
 
         np.testing.assert_allclose(

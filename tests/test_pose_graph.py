@@ -137,7 +137,7 @@ def _pose_err(a, b):
 
 class TestSolverVariants:
     """4-DoF graphs, the matrix-free PCG solver (local + mesh-sharded)
-    and fix-mask freezing must all agree with the dense MXU solve."""
+    and fix-mask freezing must all agree with the dense solve."""
 
     @pytest.mark.parametrize("dim", [3, 4])
     def test_dense_and_cg_converge(self, dim):

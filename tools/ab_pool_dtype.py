@@ -18,7 +18,7 @@ mirroring the reference's exp1 z-error harness
 with the map replaced by the pool under test.
 
 Usage: python tools/ab_pool_dtype.py [--runs 10 --steps 120
-       --particles 256] [--tpu]
+       --particles 256] [--gpu]
 Prints one JSON line with both dtypes' stats and the deltas.
 """
 
@@ -186,8 +186,8 @@ def main():
                     help="pure-SLAM regime (blank maps): ATE then "
                     "includes open-loop drift — only the f32-vs-bf16 "
                     "DELTA is meaningful")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the TPU backend (default: CPU — the "
+    ap.add_argument("--gpu", action="store_true",
+                    help="run on the GPU (default: CPU — the "
                     "storage-rounding effect under test is backend-"
                     "independent)")
     args = ap.parse_args()
@@ -198,7 +198,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
 
     out = {}

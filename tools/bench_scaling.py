@@ -67,7 +67,7 @@ def main():
             continue
         mesh = shd.make_mesh(k)
         n = args.fixed_total or args.per_device * k
-        cfg, lookup, state, cs, q = g._build(n, nx=64, ny=64)
+        cfg, lookup, state, cs, q = g._build(n, nx=64, ny=64, mesh=mesh)
         state = shd.shard_state(state, mesh)
         fn = steplib.make_filter_step(cfg, lookup, mesh=mesh)
         gate = (np.float32(1.0), np.float32(0.0))

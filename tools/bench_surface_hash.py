@@ -1,4 +1,4 @@
-"""SurfaceHash TPU benchmarks (VERDICT r3 #5).
+"""SurfaceHash benchmarks.
 
 Measures, on the current backend:
 

@@ -1,15 +1,15 @@
 """Device-trace profiling of the full filter step (bench.py shape).
 
-Aggregates per-op device time over the scan so the XLA-side overhead
-around the Pallas lookup kernel is attributable (the kernel itself
-shows as one custom-call).
+Aggregates per-op device time over the scan so each fusion of the
+step (gather + contact fold, resample, centroid) is attributable.
 
 Usage: python tools/profile_filter.py [--particles 100000]
-       [--lookup auto|window|gather] [--window 128]
 """
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 
@@ -17,13 +17,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--lookup", default="window")
-    ap.add_argument("--window", default="64",
-                    help="int (square) or WXxWY, e.g. 128x96")
     ap.add_argument("--contact-cap", type=int, default=8,
                     dest="contact_cap")
     ap.add_argument("--top", type=int, default=25)
-    ap.add_argument("--trace-dir", default="/tmp/filter_trace")
+    ap.add_argument("--trace-dir", default=os.path.join(
+        tempfile.gettempdir(), "filter_trace"))
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
 
@@ -42,7 +40,6 @@ def main():
     from slam_eslam_tpu.filter import step as steplib
     from slam_eslam_tpu.mapping.lookup import make_lookup
     from slam_eslam_tpu.models import sim as simlib
-    import os
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -54,9 +51,6 @@ def main():
     cfg = dataclasses.replace(
         Config(), particle_count=n, min_effective=n // 5,
         contact_model=ContactModelConfig(contact_point_radius=0.0),
-        lookup_mode=args.lookup,
-        lookup_window=(tuple(int(v) for v in args.window.split("x"))
-                       if "x" in args.window else int(args.window)),
     )
 
     def terrain(x, y):

@@ -14,6 +14,7 @@ import glob
 import gzip
 import json
 import os
+import tempfile
 import time
 from collections import defaultdict
 
@@ -28,14 +29,14 @@ def aggregate_trace(trace_dir, top=30):
     path = max(paths, key=os.path.getmtime)
     with gzip.open(path, "rt") as fh:
         data = json.load(fh)
-    # device-lane complete events: pid whose process_name mentions TPU/device
+    # device-lane complete events: pid whose process_name names a device
     pid_names = {}
     for ev in data["traceEvents"]:
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             pid_names[ev["pid"]] = ev["args"].get("name", "")
     dev_pids = {
         p for p, n in pid_names.items()
-        if "TPU" in n or "/device" in n.lower() or "Device" in n
+        if "/device" in n.lower() or "Device" in n
     }
     agg = defaultdict(lambda: [0.0, 0])
     total = 0.0
@@ -57,7 +58,8 @@ def main():
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--top", type=int, default=30)
-    ap.add_argument("--trace-dir", default="/tmp/slam_trace")
+    ap.add_argument("--trace-dir", default=os.path.join(
+        tempfile.gettempdir(), "slam_trace"))
     ap.add_argument("--wheel-delta", type=float, default=0.3,
                     dest="wheel_delta",
                     help="wheel advance per step (10 frames); ~4.7 "

@@ -2,7 +2,7 @@
 
 Times project / weighting / resample / full-step separately and dumps
 XLA cost analysis, so kernel work targets the measured bottleneck
-rather than a guess.  Run on the TPU (default env) or CPU (--cpu).
+rather than a guess.  Run on the GPU (default env) or CPU (--cpu).
 """
 
 import argparse
@@ -17,8 +17,6 @@ def main():
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--lookup", choices=["gather", "window"],
-                    default="gather")
     ap.add_argument("--contact-cap", type=int, default=0,
                     dest="contact_cap")
     args = ap.parse_args()
@@ -35,7 +33,7 @@ def main():
     from slam_eslam_tpu.config import Config, ContactModelConfig
     from slam_eslam_tpu.core import filter as pf
     from slam_eslam_tpu.filter import pose_estimator as pe
-    from slam_eslam_tpu.mapping.lookup import shared_grid_lookup
+    from slam_eslam_tpu.mapping.lookup import make_lookup
     from slam_eslam_tpu.models import sim as simlib
     from slam_eslam_tpu.utils import geometry
 
@@ -53,12 +51,7 @@ def main():
     grid = simlib.terrain_grid(
         terrain, nx=400, ny=400, resolution=0.05, origin=(-10.0, -10.0)
     )
-    if args.lookup == "window":
-        from slam_eslam_tpu.ops.pallas_gather import windowed_grid_lookup
-
-        lookup = windowed_grid_lookup(grid, window=64)
-    else:
-        lookup = shared_grid_lookup(grid)
+    lookup = make_lookup(cfg, grid)
 
     n_contacts = args.contact_cap or 20
     state = pe.PoseEstimatorState.create(cfg, n_contacts)
